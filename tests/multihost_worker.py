@@ -95,7 +95,6 @@ def loss_fn(v, lut):
     out = distributed_sweep_render(
         v, origin, lut, jnp.float32(0.3),
         width=16, height=16, march=march, mesh=mesh, n_planes=16,
-        backend="xla",
     )
     return jnp.mean((out - 0.25) ** 2), out
 

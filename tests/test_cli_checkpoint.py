@@ -109,7 +109,7 @@ def test_fit_voxels_cli(tmp_path):
     ck = str(tmp_path / "vox.npz")
     rc = main([
         "fit-voxels", "--size", "8", "--image", "24", "--views", "2",
-        "--iters", "8", "--checkpoint", ck, "--renderer", "slice",
+        "--iters", "8", "--checkpoint", ck,
     ])
     assert rc == 0
     out = load_checkpoint(ck)
@@ -128,8 +128,7 @@ def test_fit_voxels_cli_streamed(tmp_path):
     ck = str(tmp_path / "vox_s.npz")
     rc = main([
         "fit-voxels", "--size", "8", "--image", "24", "--views", "2",
-        "--iters", "8", "--checkpoint", ck, "--renderer", "slice",
-        "--streamed",
+        "--iters", "8", "--checkpoint", ck, "--streamed",
     ])
     assert rc == 0
     out = load_checkpoint(ck)
@@ -139,7 +138,7 @@ def test_fit_voxels_cli_streamed(tmp_path):
 
 def test_fit_hist_cli(tmp_path):
     """BASELINE config 4 smoke: histogram-volume recovery differentiated
-    through the decode (in-kernel fused on TPU, materialized here)."""
+    through the decode and the slice sweep."""
     from vrdd_tpu.cli import main
     from vrdd_tpu.io.checkpoint import load_checkpoint
 
@@ -212,7 +211,7 @@ def test_render_hist_cli(tmp_path):
         img = read_ppm(out_s)
         assert img.shape == (32, 32, 3)
         assert img.max() > 0, stat
-    # rotated view (shear-warp path; materialized fallback on CPU)
+    # rotated view (shear-warp path)
     out_r = str(tmp_path / "r_rot.ppm")
     rc = main([
         "render-hist", "--hist-file", hist_path, "--dims", "8", "8", "8",

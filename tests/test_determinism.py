@@ -1,11 +1,13 @@
 """Bitwise determinism of renders and gradients (SURVEY.md §5).
 
 The reference fixed shared-memory races by hand (ver1.9.6.txt:23-26, atomics);
-the TPU design is race-free by construction — pure functional ops and
-segment-sums instead of atomics. These tests pin the stronger property:
+this design is written race-free — pure functional ops and segment-sums
+instead of atomics. These tests pin the stronger property on the CPU mesh:
 re-running the same computation gives BITWISE-identical results, including
 across fresh jit wrappers and on the multi-device mesh (deterministic
-collectives, no atomics anywhere).
+collectives). On a GPU, XLA lowers scatter-adds (gather transposes) to
+atomics, so gradients there are bitwise-reproducible only with
+``--xla_gpu_deterministic_ops=true``.
 """
 
 import numpy as np

@@ -1,25 +1,23 @@
 """Distribution-native DISTRIBUTED rendering: bins-major histogram slabs
-sharded over bricks, the per-voxel statistic decoded inside each brick's
-fused sweep kernel (parallel/sweep.py distributed_hist_render) — the
-composition of the in-kernel decode with the sort-last sharded sweep,
-pinned on a virtual CPU mesh under the Mosaic interpreter against the
+sharded over bricks, each brick decoding its own slab to the per-voxel
+statistic before the sort-last sharded sweep (parallel/sweep.py
+distributed_hist_render), pinned on a virtual CPU mesh against the
 single-device materialized path."""
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
-from jax.experimental.pallas import tpu as pltpu
 
 from vrdd_tpu.core.transfer import default_transfer_function
 from vrdd_tpu.march.slice import slice_render_image
-from vrdd_tpu.pallas.slice_kernel import decode_weight_rows, decode_with_rows
+from vrdd_tpu.ops.histogram import decode_weight_rows, decode_with_rows
 from vrdd_tpu.parallel.mesh import make_mesh
 from vrdd_tpu.parallel.sweep import distributed_hist_render, shard_hist_volume
 
 TF = jnp.asarray(default_transfer_function())
 O = jnp.asarray([0.0, 0.0, 4.0])
-W = H = 128
+W = H = 32
 
 
 def _hist(nz=16, B=8, seed=0):
@@ -45,11 +43,10 @@ def _ref_img(hist, w, **kw):
 def test_distributed_hist_matches_single():
     hist, w = _hist(seed=3)
     mesh = _mesh2()
-    with pltpu.force_tpu_interpret_mode():
-        got = np.asarray(distributed_hist_render(
-            shard_hist_volume(hist, mesh), w, O, TF, width=W, height=H,
-            mesh=mesh,
-        ))
+    got = np.asarray(distributed_hist_render(
+        shard_hist_volume(hist, mesh), w, O, TF, width=W, height=H,
+        mesh=mesh,
+    ))
     ref = _ref_img(hist, w)
     np.testing.assert_allclose(got, ref, atol=2e-5, rtol=1e-5)
 
@@ -59,26 +56,24 @@ def test_distributed_hist_early_termination_exact():
     # must agree with the sequential sweep through the in-kernel decode
     hist, w = _hist(seed=7)
     mesh = _mesh2()
-    with pltpu.force_tpu_interpret_mode():
-        got = np.asarray(distributed_hist_render(
-            shard_hist_volume(hist, mesh), w, O, TF, density=5.0,
-            width=W, height=H, mesh=mesh,
-        ))
+    got = np.asarray(distributed_hist_render(
+        shard_hist_volume(hist, mesh), w, O, TF, density=5.0,
+        width=W, height=H, mesh=mesh,
+    ))
     ref = _ref_img(hist, w, density=5.0)
     np.testing.assert_allclose(got, ref, atol=2e-5, rtol=1e-5)
     assert (ref[..., 3] > 0.95).any()  # ET actually triggered
 
 
 def test_distributed_hist_gradients():
-    """Histogram + LUT cotangents through shard_map: per-slab kernel
-    replay chains + the pass-2 seed cotangent into upstream bricks."""
+    """Histogram + LUT cotangents through shard_map: per-slab decode
+    transposes + the pass-2 prefix cotangent into upstream bricks."""
     hist, w = _hist(seed=11)
     mesh = _mesh2()
 
     def loss_d(h, lut):
         img = distributed_hist_render(
             h, w, O, lut, width=W, height=H, mesh=mesh, density=0.6,
-            wrt=("hist", "lut"),
         )
         return jnp.sum(img ** 2)
 
@@ -88,11 +83,10 @@ def test_distributed_hist_gradients():
                                  density=0.6, use_custom_vjp=False)
         return jnp.sum(img ** 2)
 
-    with pltpu.force_tpu_interpret_mode():
-        gh, gl = jax.grad(loss_d, argnums=(0, 1))(
-            shard_hist_volume(hist, mesh), TF
-        )
-        gh, gl = np.asarray(gh), np.asarray(gl)
+    gh, gl = jax.grad(loss_d, argnums=(0, 1))(
+        shard_hist_volume(hist, mesh), TF
+    )
+    gh, gl = np.asarray(gh), np.asarray(gl)
     gh_s, gl_s = jax.grad(loss_s, argnums=(0, 1))(hist, TF)
 
     def mre(a, b):
@@ -114,11 +108,10 @@ def test_distributed_hist_var_stat():
         slice_render_image(dec, O, W, H, TF, n_planes=16, density=0.6,
                            transfer_scale=8.0, use_custom_vjp=False)
     )
-    with pltpu.force_tpu_interpret_mode():
-        got = np.asarray(distributed_hist_render(
-            shard_hist_volume(hist, mesh), rows, O, TF, density=0.6,
-            transfer_scale=8.0, width=W, height=H, mesh=mesh, stat=mode,
-        ))
+    got = np.asarray(distributed_hist_render(
+        shard_hist_volume(hist, mesh), rows, O, TF, density=0.6,
+        transfer_scale=8.0, width=W, height=H, mesh=mesh, stat=mode,
+    ))
     assert np.abs(ref).max() > 1e-3, "vacuous comparison: image is black"
     np.testing.assert_allclose(got, ref, atol=5e-5, rtol=1e-4)
 
@@ -126,13 +119,13 @@ def test_distributed_hist_var_stat():
 def test_distributed_shearwarp_hist_matches_scalar_dist():
     """ROTATED distribution-native rendering under sharding: the bins-major
     volume's spatial axes permute with the principal axis, the slab shard
-    follows, and the in-kernel decode rides the m-grid sweep. Anchored
+    follows, and each brick decodes its slab for the m-grid sweep. Anchored
     tightly against the rotated SCALAR distributed path on a materialized
-    decode (identical m-grid construction and warp — only the decode moves
-    into the kernel), and loosely against the single-device xla shear-warp
-    (different m-grid resolution → warp-filter-level agreement only, like
-    tests/test_shearwarp.py's pallas-vs-xla bound; the random histogram
-    volume decodes to broadband noise, the worst case for resampling)."""
+    decode (identical m-grid construction and warp — only where the decode
+    runs differs), and loosely against the single-device shear-warp (the
+    distributed m-grid rows are extended to the shard multiple → warp-
+    filter-level agreement; the random histogram volume decodes to
+    broadband noise, the worst case for resampling)."""
     from vrdd_tpu.core.geometry import inv_view_from_rotation_translation
     from vrdd_tpu.march.shearwarp import (
         shearwarp_geometry,
@@ -152,19 +145,17 @@ def test_distributed_shearwarp_hist_matches_scalar_dist():
         axis, _, _, dz_sign, ok = shearwarp_geometry(iv, 32, 32)
         assert ok
         signs.add(dz_sign)
-        with pltpu.force_tpu_interpret_mode():
-            got = np.asarray(distributed_shearwarp_hist_render(
-                hist, w, iv, 32, 32, TF, mesh=mesh, density=0.6,
-            ))
-            ref = np.asarray(distributed_shearwarp_render(
-                dec, iv, 32, 32, TF, density=0.6, mesh=mesh,
-                n_planes=hist.shape[0], backend="pallas", plane_chunk=4,
-            ))
+        got = np.asarray(distributed_shearwarp_hist_render(
+            hist, w, iv, 32, 32, TF, mesh=mesh, density=0.6,
+        ))
+        ref = np.asarray(distributed_shearwarp_render(
+            dec, iv, 32, 32, TF, density=0.6, mesh=mesh,
+            n_planes=hist.shape[0],
+        ))
         np.testing.assert_allclose(got, ref, atol=5e-5, rtol=1e-4,
                                    err_msg=f"view rx={rx} ry={ry}")
         ref_x = np.asarray(shearwarp_render_image(
             dec, iv, 32, 32, TF, density=0.6, n_planes=hist.shape[0],
-            backend="xla",
         ))
         diff = np.abs(got - ref_x)
         assert np.quantile(diff, 0.9) < 5e-2, (rx, ry, np.quantile(diff, 0.9))
@@ -173,9 +164,8 @@ def test_distributed_shearwarp_hist_matches_scalar_dist():
 
 def test_distributed_shearwarp_hist_gradients():
     """Histogram + LUT cotangents through the rotated sharded path: the
-    axis permutation, re-shard, per-slab replay chains, seed cotangent,
-    and warp transpose must compose to the materialized single-device
-    gradient."""
+    axis permutation, re-shard, per-slab decode, prefix cotangent, and
+    warp transpose must compose to the materialized gradient."""
     from vrdd_tpu.core.geometry import inv_view_from_rotation_translation
     from vrdd_tpu.parallel.sweep import (
         distributed_shearwarp_hist_render,
@@ -189,7 +179,6 @@ def test_distributed_shearwarp_hist_gradients():
     def loss_d(h, lut):
         img = distributed_shearwarp_hist_render(
             h, w, iv, 16, 16, lut, mesh=mesh, density=0.6,
-            wrt=("hist", "lut"),
         )
         return jnp.sum(img ** 2)
 
@@ -199,14 +188,12 @@ def test_distributed_shearwarp_hist_gradients():
         dec = jnp.einsum("zbyx,b->zyx", h, w)
         img = distributed_shearwarp_render(
             dec, iv, 16, 16, lut, density=0.6, mesh=mesh,
-            n_planes=h.shape[0], backend="pallas", plane_chunk=4,
-            wrt=("volume", "lut"),
+            n_planes=h.shape[0],
         )
         return jnp.sum(img ** 2)
 
-    with pltpu.force_tpu_interpret_mode():
-        gh, gl = jax.grad(loss_d, argnums=(0, 1))(hist, TF)
-        gh_s, gl_s = jax.grad(loss_s, argnums=(0, 1))(hist, TF)
+    gh, gl = jax.grad(loss_d, argnums=(0, 1))(hist, TF)
+    gh_s, gl_s = jax.grad(loss_s, argnums=(0, 1))(hist, TF)
     gh, gl = np.asarray(gh), np.asarray(gl)
 
     def mre(a, b):
@@ -215,35 +202,6 @@ def test_distributed_shearwarp_hist_gradients():
 
     assert mre(gh, gh_s) < 5e-4, "histogram cotangent (rotated, sharded)"
     assert mre(gl, gl_s) < 5e-4, "LUT cotangent (rotated, sharded)"
-
-
-def test_shearwarp_hist_supported_uses_permuted_shape():
-    """The rotated-path support check (cli render-hist gate) must evaluate
-    the PERMUTED shape and the actual m-grid dims: a z-principal view of a
-    modest volume passes; blowing the m-grid up via oversample or asking
-    for a y-principal view of a volume whose permuted spatial dims explode
-    the VMEM budgets must fail closed; a d_z sign flip (camera inside the
-    footprint spread) is inapplicable and also False."""
-    from vrdd_tpu.core.geometry import inv_view_from_rotation_translation
-    from vrdd_tpu.parallel.sweep import shearwarp_hist_supported
-
-    iv_z = np.asarray(inv_view_from_rotation_translation(
-        10.0, 15.0, (0.0, 0.0, -4.0)), np.float32)
-    shape = (64, 16, 64, 64)
-    assert shearwarp_hist_supported(shape, iv_z, 256, 256)
-    # a 4096-wide m-grid's accumulator cannot stay VMEM-resident
-    assert not shearwarp_hist_supported(shape, iv_z, 4096, 4096,
-                                        oversample=2.0)
-    # the advisor's scenario: a shape whose UNROTATED planes fit the
-    # budget (the naive hist_render_supported passes) but whose y-principal
-    # PERMUTED planes (nz x nx) blow it — the permuted check fails closed
-    from vrdd_tpu.pallas.slice_kernel import hist_render_supported
-
-    iv_y = np.asarray(inv_view_from_rotation_translation(
-        80.0, 5.0, (0.0, 0.0, -4.0)), np.float32)
-    tall = (4096, 16, 64, 4096)  # z-planes 64x4096 ok; y-planes 4096x4096
-    assert hist_render_supported(tall, 256, 256)
-    assert not shearwarp_hist_supported(tall, iv_y, 256, 256)
 
 
 def test_octant_cache_slots_and_clear():
@@ -275,3 +233,25 @@ def test_octant_cache_slots_and_clear():
     assert "scalar" not in _OCTANT_CACHE and "hist" in _OCTANT_CACHE
     clear_octant_cache()
     assert not _OCTANT_CACHE
+
+
+@pytest.mark.parametrize("stat,tscl", [("mean", 1.0), ("var", 8.0),
+                                       ("entropy", 1.0)])
+def test_distributed_hist_stats_8_devices(stat, tscl):
+    """Every statistic on the full 8-device virtual mesh (4 bricks x 2 ray
+    shards, saturating density so the two-pass early termination runs)
+    against the single-device decode-then-sweep."""
+    hist, _ = _hist(seed=29)
+    rows, mode = decode_weight_rows(stat, 8, family="unit")
+    mesh = make_mesh(bricks=4, rays=2)
+    dec = decode_with_rows(hist, rows, mode)
+    ref = np.asarray(slice_render_image(
+        dec, O, W, H, TF, n_planes=16, density=2.0, transfer_scale=tscl,
+        use_custom_vjp=False,
+    ))
+    got = np.asarray(distributed_hist_render(
+        shard_hist_volume(hist, mesh), rows, O, TF, density=2.0,
+        transfer_scale=tscl, width=W, height=H, mesh=mesh, stat=mode,
+    ))
+    assert np.abs(ref).max() > 1e-3, "vacuous comparison: image is black"
+    np.testing.assert_allclose(got, ref, atol=5e-5, rtol=1e-4)

@@ -73,109 +73,62 @@ def test_distributed_sweep_gradients():
     )
 
 
-def test_sweep_preblended_planes_traced_slopes():
-    """The distributed pallas backend's per-device building block: the fused
-    kernel consuming an already-preblended plane stack with TRACED slope
-    grid / plane depths / row window (what shard_map shards are). Parity vs
-    the single-device slice sweep on the same planes.
+def _pure_select_stack(vol, march):
+    """Front-to-back plane stack of the -z camera with n_planes == Z: the
+    planes are the volume's layers, reversed (no z lerp)."""
+    nz = vol.shape[0]
+    spacing = (march.box_max[2] - march.box_min[2]) / nz
+    zs = (march.box_min[2]
+          + spacing * (np.arange(nz, dtype=np.float32) + 0.5))[::-1]
+    return vol[::-1], np.ascontiguousarray(zs, dtype=np.float32), spacing
 
-    The full shard_map x pallas composition is ALSO pinned on CPU now —
-    see test_shard_map_pallas_composition_interpret below (small shapes
-    keep the interpreter affordable); `backend='auto'` still only selects
-    pallas on a real TPU backend.
-    """
-    from jax.experimental.pallas import tpu as pltpu
 
-    from vrdd_tpu.pallas.slice_kernel import (
-        _preblend_planes,
-        sweep_preblended_planes,
-    )
-    from vrdd_tpu.utils.config import MarchConfig
-
-    vol = jnp.asarray(gaussian_blob_volume((16, 16, 16), seed=5))
-    W = H = 128
-    n_planes = 32
-    march = MarchConfig()
-    planes, zs = _preblend_planes(
-        vol, n_planes, march.box_min, march.box_max, -1, 0.5
-    )
-    # the unrotated pixel grid, handed over as DATA (not compile constants)
+def _pixel_slopes(W, H):
     u = (np.arange(W, dtype=np.float32) / W) * 2.0 - 1.0
     v = (np.arange(H, dtype=np.float32) / H) * 2.0 - 1.0
-    mx, my = u / -2.0, v / -2.0
-    slopes = jnp.asarray(
-        [mx[0], mx[1] - mx[0], my[0], my[1] - my[0]], jnp.float32
-    )
-    with pltpu.force_tpu_interpret_mode():
-        got = np.asarray(
-            jax.jit(
-                lambda p, z, s: sweep_preblended_planes(
-                    p, z, O, s, TF, width=W, height=H, march=march
-                )
-            )(planes, jnp.asarray(zs), slopes)
-        )
-    ref = _ref(vol, W, H, n_planes=n_planes)
-    diff = np.abs(got - ref)
-    assert np.quantile(diff, 0.999) < 1e-4, np.quantile(diff, 0.999)
+    return u / -2.0, v / -2.0
 
 
 def test_diff_sweep_seeded_grad_matches_full():
     """Gradients THROUGH the seed: a front half plus a seeded back half must
-    reproduce one full differentiable sweep's gradients — the distributed
-    pass-2 building block (seed cotangent d seed_a = g_a - S/T_0 in
-    pallas/slice_vjp.py), with plane depths and spacing as traced data."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from vrdd_tpu.pallas.slice_kernel import _preblend_planes
-    from vrdd_tpu.pallas.slice_vjp import sweep_preblended_planes_diff
+    reproduce one full differentiable sweep's gradients — the streamed and
+    distributed building block (seed cotangent d seed_a = g_a - S/T_0 in
+    march/slice.py sweep_preblended_planes_xla)."""
+    from vrdd_tpu.march.slice import sweep_preblended_planes_xla
     from vrdd_tpu.utils.config import MarchConfig
 
-    vol = jnp.asarray(gaussian_blob_volume((16, 16, 16), seed=5))
-    W = H = 128
-    n_planes = 32
+    vol = jnp.asarray(gaussian_blob_volume((32, 16, 16), seed=5))
+    W = H = 24
     march = MarchConfig()
-    planes, zs = _preblend_planes(
-        vol, n_planes, march.box_min, march.box_max, -1, 0.5
-    )
-    zs = jnp.asarray(zs)
-    u = (np.arange(W, dtype=np.float32) / W) * 2.0 - 1.0
-    v = (np.arange(H, dtype=np.float32) / H) * 2.0 - 1.0
-    mx, my = u / -2.0, v / -2.0
-    slopes = jnp.asarray(
-        [mx[0], mx[1] - mx[0], my[0], my[1] - my[0]], jnp.float32
-    )
-    half = n_planes // 2
-    spacing = (march.box_max[2] - march.box_min[2]) / n_planes
-    kw = dict(width=W, height=H, march=march, plane_spacing=spacing)
+    planes, zs, spacing = _pure_select_stack(vol, march)
+    mx, my = _pixel_slopes(W, H)
+    half = planes.shape[0] // 2
+    kw = dict(march=march, plane_spacing=spacing)
     rng = np.random.default_rng(3)
     tgt = jnp.asarray(rng.random((H, W, 4), dtype=np.float32))
     # density high enough that some rays saturate within the FRONT half, so
     # the back half sees frozen seeds (m = 0 past the cutoff)
     density = jnp.float32(2.0)
 
+    def sweep(p, z, lut, d, **extra):
+        return sweep_preblended_planes_xla(p, z, O, mx, my, lut, d,
+                                           **kw, **extra)
+
     def loss_full(p, lut, d):
-        img = sweep_preblended_planes_diff(p, zs, O, slopes, lut, d, **kw)
-        return jnp.sum(img * tgt)
+        return jnp.sum(sweep(p, zs, lut, d) * tgt)
 
     def loss_split(p, lut, d):
-        front = sweep_preblended_planes_diff(
-            p[:half], zs[:half], O, slopes, lut, d, **kw
-        )
-        img = sweep_preblended_planes_diff(
-            p[half:], zs[half:], O, slopes, lut, d, acc_init=front, **kw
-        )
+        front = sweep(p[:half], zs[:half], lut, d)
+        img = sweep(p[half:], zs[half:], lut, d, acc_init=front)
         return jnp.sum(img * tgt)
 
-    with pltpu.force_tpu_interpret_mode():
-        lf, gf = jax.value_and_grad(loss_full, argnums=(0, 1, 2))(
-            planes, TF, density
-        )
-        ls, gs = jax.value_and_grad(loss_split, argnums=(0, 1, 2))(
-            planes, TF, density
-        )
-        front_a = np.asarray(sweep_preblended_planes_diff(
-            planes[:half], zs[:half], O, slopes, TF, density, **kw
-        ))[..., 3]
+    lf, gf = jax.value_and_grad(loss_full, argnums=(0, 1, 2))(
+        planes, TF, density
+    )
+    ls, gs = jax.value_and_grad(loss_split, argnums=(0, 1, 2))(
+        planes, TF, density
+    )
+    front_a = np.asarray(sweep(planes[:half], zs[:half], TF, density))[..., 3]
     assert (front_a > march.opacity_threshold).any()  # freeze exercised
     assert np.allclose(float(lf), float(ls), rtol=1e-5)
     for name, a, b in zip(("planes", "lut", "density"), gf, gs):
@@ -187,53 +140,32 @@ def test_diff_sweep_seeded_grad_matches_full():
 def test_sweep_seeded_resume_matches_full():
     """acc_init resumes the front-to-back recursion mid-flight: sweeping the
     back half of the plane stack seeded with the front half's accumulator
-    must equal the full sweep (this is the distributed pass-2 building
+    must equal the full sweep (the streamed-decode chunk chain's building
     block); pixels seeded past the opacity threshold stay frozen."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from vrdd_tpu.pallas.slice_kernel import (
-        _preblend_planes,
-        sweep_preblended_planes,
-    )
+    from vrdd_tpu.march.slice import sweep_preblended_planes_xla
     from vrdd_tpu.utils.config import MarchConfig
 
-    vol = jnp.asarray(gaussian_blob_volume((16, 16, 16), seed=5))
-    W = H = 128
-    n_planes = 32
+    vol = jnp.asarray(gaussian_blob_volume((32, 16, 16), seed=5))
+    W = H = 24
     march = MarchConfig()
-    planes, zs = _preblend_planes(
-        vol, n_planes, march.box_min, march.box_max, -1, 0.5
-    )
-    zs = jnp.asarray(zs)
-    u = (np.arange(W, dtype=np.float32) / W) * 2.0 - 1.0
-    v = (np.arange(H, dtype=np.float32) / H) * 2.0 - 1.0
-    mx, my = u / -2.0, v / -2.0
-    slopes = jnp.asarray(
-        [mx[0], mx[1] - mx[0], my[0], my[1] - my[0]], jnp.float32
-    )
-    half = n_planes // 2
+    planes, zs, spacing = _pure_select_stack(vol, march)
+    mx, my = _pixel_slopes(W, H)
+    half = planes.shape[0] // 2
     # partial stacks keep the FULL stack's plane spacing
-    kw = dict(width=W, height=H, march=march, density=0.8,
-              plane_spacing=(march.box_max[2] - march.box_min[2]) / n_planes)
-    with pltpu.force_tpu_interpret_mode():
-        full = np.asarray(jax.jit(
-            lambda p, z, s: sweep_preblended_planes(p, z, O, s, TF, **kw)
-        )(planes, zs, slopes))
-        front = jax.jit(
-            lambda p, z, s: sweep_preblended_planes(p, z, O, s, TF, **kw)
-        )(planes[:half], zs[:half], slopes)
-        resumed = np.asarray(jax.jit(
-            lambda p, z, s, a: sweep_preblended_planes(
-                p, z, O, s, TF, acc_init=a, **kw)
-        )(planes[half:], zs[half:], slopes, front))
-        # frozen seed: alpha past the threshold contributes nothing
-        frozen = jnp.concatenate(
-            [jnp.zeros((H, W, 3), jnp.float32),
-             jnp.full((H, W, 1), 2.0, jnp.float32)], axis=-1)
-        untouched = np.asarray(jax.jit(
-            lambda p, z, s, a: sweep_preblended_planes(
-                p, z, O, s, TF, acc_init=a, **kw)
-        )(planes[half:], zs[half:], slopes, frozen))
+    kw = dict(march=march, plane_spacing=spacing)
+
+    def sweep(p, z, acc=None):
+        return sweep_preblended_planes_xla(p, z, O, mx, my, TF, 0.8,
+                                           acc_init=acc, **kw)
+
+    full = np.asarray(sweep(planes, zs))
+    front = sweep(planes[:half], zs[:half])
+    resumed = np.asarray(sweep(planes[half:], zs[half:], front))
+    # frozen seed: alpha past the threshold contributes nothing
+    frozen = jnp.concatenate(
+        [jnp.zeros((H, W, 3), jnp.float32),
+         jnp.full((H, W, 1), 2.0, jnp.float32)], axis=-1)
+    untouched = np.asarray(sweep(planes[half:], zs[half:], frozen))
     diff = np.abs(resumed - full)
     assert np.quantile(diff, 0.999) < 1e-5, np.quantile(diff, 0.999)
     np.testing.assert_array_equal(untouched, np.asarray(frozen))
@@ -257,7 +189,7 @@ def test_distributed_shearwarp_matches_single():
             mesh=mesh, n_planes=32,
         ))
         ref = np.asarray(shearwarp_render_image(
-            vol, iv, 32, 32, TF, n_planes=32, backend="xla",
+            vol, iv, 32, 32, TF, n_planes=32,
         ))
         np.testing.assert_allclose(got, ref, atol=2e-5, rtol=1e-5)
 
@@ -279,7 +211,7 @@ def test_distributed_shearwarp_gradients():
 
     def loss1(v, lut):
         img = shearwarp_render_image(
-            v, iv, 16, 16, lut, n_planes=16, backend="xla",
+            v, iv, 16, 16, lut, n_planes=16,
         )
         return jnp.sum(img ** 2)
 
@@ -289,52 +221,6 @@ def test_distributed_shearwarp_gradients():
                                atol=3e-4, rtol=3e-4)
     np.testing.assert_allclose(np.asarray(gl), np.asarray(gl1),
                                atol=3e-4, rtol=3e-4)
-
-
-def test_shard_map_pallas_composition_interpret():
-    """The FULL shard_map x fused-Pallas composition — the distributed
-    sort-last sweep running the seeded two-pass kernels per device — on a
-    2-brick virtual CPU mesh under the Mosaic interpreter, forward AND
-    differentiated: value and (volume, LUT) cotangents match the
-    single-device XLA path at float eps. (This is the novel distributed
-    path previously attested only on real TPU; small shapes keep the
-    interpreter cost ~40 s.)"""
-    from jax.experimental.pallas import tpu as pltpu
-
-    vol = jnp.asarray(gaussian_blob_volume((8, 16, 16), seed=5))
-    mesh = make_mesh(bricks=2, rays=1, devices=jax.devices()[:2])
-    sharded = shard_scalar_volume(vol, mesh)
-
-    with pltpu.force_tpu_interpret_mode():
-        got = np.asarray(distributed_sweep_render(
-            sharded, O, TF, width=128, height=128, mesh=mesh, n_planes=16,
-            backend="pallas",
-        ))
-    ref = np.asarray(
-        slice_render_image(vol, O, 128, 128, TF, n_planes=16,
-                           use_custom_vjp=False)
-    )
-    assert float(np.abs(got - ref).max()) < 1e-5
-
-    def loss_d(v, lut):
-        img = distributed_sweep_render(
-            v, O, lut, width=128, height=128, mesh=mesh, n_planes=16,
-            backend="pallas", plane_chunk=4, wrt=("volume", "lut"),
-        )
-        return jnp.sum(img ** 2)
-
-    with pltpu.force_tpu_interpret_mode():
-        gv, gl = jax.grad(loss_d, argnums=(0, 1))(sharded, TF)
-        gv, gl = np.asarray(gv), np.asarray(gl)
-
-    def loss_s(v, lut):
-        img = slice_render_image(v, O, 128, 128, lut, n_planes=16)
-        return jnp.sum(img ** 2)
-
-    rv, rl = jax.grad(loss_s, argnums=(0, 1))(vol, TF)
-    rv, rl = np.asarray(rv), np.asarray(rl)
-    assert float(np.abs(gv - rv).max()) / (np.abs(rv).max() + 1e-12) < 1e-5
-    assert float(np.abs(gl - rl).max()) / (np.abs(rl).max() + 1e-12) < 1e-5
 
 
 def test_distributed_replicated_flex_axis_scale_matches_single():

@@ -16,7 +16,6 @@ import pathlib
 import numpy as np
 import jax.numpy as jnp
 import pytest
-from jax.experimental.pallas import tpu as pltpu
 
 from vrdd_tpu.core.image import rgba_to_uint8
 from vrdd_tpu.io import formats
@@ -63,15 +62,7 @@ def _render(pipeline, query, renderer) -> np.ndarray:
         inv_view_from_rotation_translation(15.0, 10.0, (0.0, 0.0, -4.0))
         if renderer == "shearwarp" else None
     )
-    if renderer == "pallas":
-        # the fused TPU kernels, run under the Mosaic interpreter on CPU —
-        # pins the fast path's semantics against the same kind of fixture
-        # the reference's runSingleTest uses
-        with pltpu.force_tpu_interpret_mode():
-            img = pipeline.render(inv_view, config, renderer)
-            img = np.asarray(img)
-    else:
-        img = pipeline.render(inv_view, config, renderer)
+    img = pipeline.render(inv_view, config, renderer)
     return np.asarray(rgba_to_uint8(jnp.asarray(img)))
 
 
@@ -80,10 +71,10 @@ CASES = [
     ("scan_q3", 3, "scan"),
     ("scan_q7", 7, "scan"),
     ("slice_q1", 1, "slice"),
-    ("pallas_q1", 1, "pallas"),
     ("shearwarp_q1", 1, "shearwarp"),
     ("scan_q9", 9, "scan"),
-    ("pallas_q9", 9, "pallas"),
+    # flexible-block query on the unrotated object-order fast path
+    ("slice_q9", 9, "slice"),
     # rotated flexible-block query on the object-order fast path
     ("shearwarp_q9", 9, "shearwarp"),
 ]
@@ -106,3 +97,29 @@ def test_golden(pipeline, name, query, renderer, pytestconfig):
     ref = formats.read_ppm(str(path))  # (H, W, 3): PPM drops alpha
     ok, outliers = formats.compare_ppm(img[..., :3], ref)  # reference tolerances
     assert ok, f"{name}: {outliers:.1%} pixels beyond epsilon"
+
+
+@pytest.mark.parametrize("query", [1, 9])
+def test_slice_tracks_scan_at_golden_tolerance(pipeline, query):
+    """The slice fixtures pin the sweep's own semantics; this pins the sweep
+    against the reference-faithful scan marcher with the reference's golden
+    tolerance at the default density (RenderConfig, 0.05). At the
+    fixtures' density 0.5 rays saturate within a few planes and the sweep's
+    plane-vs-shell sampling exceeds that tolerance (~44% outliers), so the
+    fixtures cannot stand in for this check."""
+    from vrdd_tpu.utils.config import TransferFunctionConfig
+
+    tf_scale = 1.0 / 255.0 if query == 9 else 1.0
+    config = RenderConfig(
+        camera=CameraConfig(width=W, height=H),
+        density=0.05,
+        query_method=QueryMethod(query),
+        tf=TransferFunctionConfig(scale=tf_scale),
+    )
+    imgs = [
+        np.asarray(rgba_to_uint8(pipeline.render(None, config, r)))[..., :3]
+        for r in ("slice", "scan")
+    ]
+    assert imgs[1].max() > 100, "vacuous comparison: scan image is dark"
+    ok, outliers = formats.compare_ppm(*imgs)
+    assert ok, f"q{query}: {outliers:.1%} pixels beyond epsilon"

@@ -33,7 +33,7 @@ def test_streaming_matches_materialized():
         got = np.asarray(
             streaming_decode_render(
                 hist, _decode, O, TF, density=0.3, width=32, height=32,
-                n_planes=32, chunk_planes=chunk_planes, backend="xla",
+                n_planes=32, chunk_planes=chunk_planes,
             )
         )
         np.testing.assert_allclose(got, ref, atol=2e-6, rtol=1e-5)
@@ -50,7 +50,7 @@ def test_streaming_early_termination_exact():
     got = np.asarray(
         streaming_decode_render(
             hist, _decode, O, TF, density=5.0,
-            width=32, height=32, n_planes=32, chunk_planes=8, backend="xla",
+            width=32, height=32, n_planes=32, chunk_planes=8,
         )
     )
     assert (ref[..., 3] > 0.95).any()  # ET actually triggered
@@ -66,7 +66,7 @@ def test_streaming_gradients_match():
     def loss_stream(h, lut):
         img = streaming_decode_render(
             h, _decode, O, lut, density=0.5, width=16, height=16,
-            n_planes=16, chunk_planes=4, backend="xla",
+            n_planes=16, chunk_planes=4,
         )
         return jnp.sum(img ** 2)
 
@@ -93,7 +93,7 @@ def test_streaming_remat_invariant():
     def run(remat):
         return streaming_decode_render(
             hist, _decode, O, TF, density=0.5, width=16, height=16,
-            n_planes=16, chunk_planes=4, backend="xla", remat=remat,
+            n_planes=16, chunk_planes=4, remat=remat,
         )
 
     np.testing.assert_array_equal(np.asarray(run(True)), np.asarray(run(False)))
@@ -120,7 +120,7 @@ def test_streaming_gaussian_pytree():
     got = np.asarray(
         streaming_decode_render(
             (mu, sigma), decode, O, TF, density=0.5, width=16, height=16,
-            n_planes=16, chunk_planes=4, backend="xla",
+            n_planes=16, chunk_planes=4,
         )
     )
     np.testing.assert_allclose(got, ref, atol=2e-6, rtol=1e-5)
@@ -128,7 +128,7 @@ def test_streaming_gaussian_pytree():
     def loss(t, lut):
         img = streaming_decode_render(
             t, decode, O, lut, density=0.5, width=16, height=16,
-            n_planes=16, chunk_planes=4, backend="xla",
+            n_planes=16, chunk_planes=4,
         )
         return jnp.sum(img ** 2)
 
@@ -144,26 +144,3 @@ def test_streaming_gaussian_pytree():
     np.testing.assert_allclose(np.asarray(gmu), np.asarray(rmu), atol=1e-5, rtol=1e-4)
     np.testing.assert_allclose(np.asarray(gsig), np.asarray(rsig), atol=1e-5, rtol=1e-4)
     np.testing.assert_allclose(np.asarray(gl), np.asarray(rl), atol=1e-5, rtol=1e-4)
-
-
-def test_streaming_pallas_chunks_match_slice():
-    """The fused-kernel streaming path (chained SEEDED sweeps,
-    sweep_preblended_planes_diff) under the Mosaic interpreter: exact
-    against the XLA slice sweep — the seed chain is the true prefix, so
-    chunking is bit-invisible."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    hist = _hist_volume(n=8, bins=8, seed=0)
-    with pltpu.force_tpu_interpret_mode():
-        got = np.asarray(
-            streaming_decode_render(
-                hist, _decode, O, TF, density=0.5, width=128, height=128,
-                n_planes=16, chunk_planes=8, backend="pallas",
-            )
-        )
-    ref = np.asarray(
-        slice_render_image(
-            _decode(hist), O, 128, 128, TF, density=0.5, n_planes=16
-        )
-    )
-    assert float(np.quantile(np.abs(got - ref), 0.999)) < 1e-4

@@ -123,8 +123,7 @@ def test_render_determinism_bitwise():
 def test_sweep_fit_step_distributed():
     """Fast-path distributed training: TF fitting through the distributed
     object-order sweep (the north-star training step; the scan-bricks path
-    stays as the rotated/flex fallback). XLA backend on the CPU mesh — the
-    same step runs the fused Pallas VJP per device on TPU."""
+    stays as the rotated/flex fallback)."""
     from vrdd_tpu.parallel.mesh import make_mesh
     from vrdd_tpu.parallel.sweep import (
         distributed_sweep_render,

@@ -10,8 +10,8 @@ Semantics match the reference's NDC ray generation and slab ray-box test:
   (volumeRender.cpp:235-246).
 - Slab test per intersectBox (volumeRender_kernel.cu:136-156).
 
-Pure jnp; runs on CPU or TPU, fully differentiable, vmap-free (shaped over the
-whole image plane so XLA vectorizes over the (8,128) VPU lanes).
+Pure jnp; runs on any JAX backend, fully differentiable, vmap-free (shaped
+over the whole image plane so XLA vectorizes it).
 """
 
 from __future__ import annotations

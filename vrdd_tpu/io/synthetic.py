@@ -249,3 +249,52 @@ def synthetic_flexible_dataset(
         simple_freqs=simple_freqs,
         simple_counts=simple_counts,
     )
+
+
+def device_blob_volume(n: int, seed: int = 0):
+    """A float32 ``(n, n, n)`` sum of three separable gaussians with peak
+    1, generated on the device: only the seeded blob parameters come from
+    the host, so a 1024^3 field (4.3 GB) costs no upload."""
+    import jax
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(seed)
+    cs = [rng.uniform(0.3, 0.7, size=3).astype(np.float32) for _ in range(3)]
+    ss = [np.float32(rng.uniform(0.1, 0.25)) for _ in range(3)]
+
+    @jax.jit
+    def gen():
+        z = jnp.linspace(0.0, 1.0, n, dtype=jnp.float32)
+        vol = jnp.zeros((n, n, n), jnp.float32)
+        for c, s in zip(cs, ss):
+            g = [jnp.exp(-((z - c[k]) ** 2) / (2 * s * s)) for k in range(3)]
+            vol = vol + (g[0][:, None, None] * g[1][None, :, None]
+                         * g[2][None, None, :])
+        return vol / jnp.max(vol)
+
+    return gen()
+
+
+def device_histogram_volume(
+    n: int, n_bins: int = 16, seed: int = 0, dtype="bfloat16"
+):
+    """A bins-MAJOR ``(n, n_bins, n, n)`` histogram volume generated on the
+    device: per-voxel softmax histograms peaked around the
+    :func:`device_blob_volume` mean field (structured like the
+    raw-histogram data of volumeRender_kernel.cu:722-742), so a
+    512^3 x 16-bin volume (4.3 GB in bf16) costs no upload."""
+    import jax
+    import jax.numpy as jnp
+
+    centers = ((np.arange(n_bins, dtype=np.float32) + 0.5)
+               / n_bins)[:, None, None]
+
+    def layer(b):
+        # one z-layer at a time, so the f32 logits never exceed one
+        # (n_bins, n, n) layer
+        logits = -((centers - b[None]) ** 2) / 0.02
+        return jax.nn.softmax(logits, axis=0).astype(dtype)
+
+    return jax.jit(lambda base: jax.lax.map(layer, base))(
+        device_blob_volume(n, seed)
+    )

@@ -1,6 +1,6 @@
 """Pure-numpy re-implementation of the reference render kernel.
 
-This module is the CPU *specification* the JAX/Pallas paths are tested against
+This module is the CPU *specification* the JAX paths are tested against
 ("allclose to a CPU reference re-implementation of volumeRender_kernel.cu",
 BASELINE.json). It deliberately mirrors d_render (volumeRender_kernel.cu:
 272-717) step for step — including quirks:
@@ -20,7 +20,7 @@ the two implementations cross-check each other.
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 
@@ -80,11 +80,17 @@ def reference_render(
     tstep: float = 0.01,
     opacity_threshold: float = 0.95,
     focal: float = 2.0,
+    rows: Optional[Tuple[int, int]] = None,
 ) -> np.ndarray:
-    """Render an (H, W, 4) float32 RGBA image, mirroring d_render exactly."""
+    """Render an (H, W, 4) float32 RGBA image, mirroring d_render exactly.
+
+    ``rows=(r0, r1)`` renders only image rows ``r0:r1`` of the (H, W) image
+    (an ``(r1 - r0, W, 4)`` band), so a full-width band of a large image can
+    be checked without marching every ray on the host."""
     inv_view = np.asarray(inv_view, dtype=np.float32)
+    r0, r1 = (0, height) if rows is None else rows
     x = np.arange(width, dtype=np.float32)
-    y = np.arange(height, dtype=np.float32)
+    y = np.arange(r0, r1, dtype=np.float32)
     u = (x / width) * 2.0 - 1.0
     v = (y / height) * 2.0 - 1.0
     uu, vv = np.meshgrid(u, v)
@@ -133,4 +139,4 @@ def reference_render(
         pos = np.where(alive[:, None], pos + step, pos)
 
     summ = np.where(hit[:, None], summ * brightness, summ)
-    return summ.reshape(height, width, 4)
+    return summ.reshape(r1 - r0, width, 4)

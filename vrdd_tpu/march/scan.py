@@ -1,6 +1,6 @@
 """The ray marcher — `lax.scan` formulation.
 
-TPU-native reformulation of d_render's per-thread marching loop
+Data-parallel reformulation of d_render's per-thread marching loop
 (volumeRender_kernel.cu:381-707): instead of one divergent thread per pixel,
 ALL rays advance in lock-step through a `lax.scan` over steps, with early ray
 termination expressed as a per-ray *alive mask* (masked accumulation — the

@@ -1,9 +1,11 @@
-"""Object-order slice-sweep renderer — the MXU fast path.
+"""Object-order slice-sweep renderer — the matmul fast path.
 
-TPUs have no texture units, and per-sample scalar gathers (the direct
-translation of d_render's tex3D fetches) run at ~1e8/s — thousands of times
-off speed-of-light. This module reformulates the render *object-order*: sweep
-the volume's Z planes front-to-back and composite each plane into the image.
+Instead of per-sample 3-D gathers (the direct translation of d_render's
+tex3D fetches), this module renders *object-order*: sweep the volume's Z
+planes front-to-back, resample each plane onto the image with two small
+matrix products, and composite it into the image. Whether this beats the
+image-order marcher (vrdd_tpu/march/scan.py) on a GPU, which gathers
+natively, is an open measurement.
 
 The core factorization is **ray-slope space**: parameterize each pinhole ray
 by its slope ``m = (d_x / d_z, d_y / d_z)`` in volume axes. On the plane
@@ -17,18 +19,26 @@ TRANSLATE — a separable resample:
 
     resampled = Wy(zk) @ plane @ Wx(zk)^T,     Wx: (Wi, X), Wy: (Hi, Y)
 
-with bilinear CUDA-model weights (2 nonzeros/row, built densely on the fly —
-the MXU eats them). The transfer-function lookup is an unrolled tent-basis
-FMA over the small LUT. Everything lands on the MXU/VPU; there are NO gathers.
-Compositing in m-space is per-ray exact (each m-grid point IS one ray through
-the camera), with per-ray slab path length ``dz * sqrt(1 + mx^2 + my^2)``.
+with bilinear CUDA-model weights (2 nonzeros/row, built densely on the fly).
+The transfer-function lookup is an unrolled tent-basis FMA over the small
+LUT; there are no gathers. Compositing in m-space is per-ray exact (each
+m-grid point IS one ray through the camera), with per-ray slab path length
+``dz * sqrt(1 + mx^2 + my^2)``.
+
+Precision: the resample products run at the backend's DEFAULT matmul
+precision, which on an H100 is TF32 for these f32 operands. The weights are
+exact in TF32 only to ~1e-3, so each resampled value carries ~1e-3 relative
+rounding; chip_smoke.py measures the 1024^2 image against a HIGHEST-precision
+render and against the scan marcher and checks it stays inside the
+reference's golden tolerance (5/255 per pixel). Callers that need float32
+resampling wrap the call in ``jax.default_matmul_precision("highest")``.
 
 For the reference's unrotated benchmark camera (volumeRender.cpp:1024-1043)
 the m-grid equals the pixel grid (``m = (u, v) / -focal``) and
 :func:`slice_render_image` renders directly. For ARBITRARY rotated views, the
 same sweep runs on a bounding m-grid and one final 2-D homography warp maps
 m-space to pixels — see ``vrdd_tpu.march.shearwarp`` (the perspective
-shear-warp factorization, Lacroute & Levoy, recast TPU-native).
+shear-warp factorization, Lacroute & Levoy).
 
 Discretization difference vs the ray-order marcher: samples lie on constant-z
 planes instead of constant-t shells, with per-ray segment length
@@ -114,8 +124,8 @@ def _tf_onehot_matmul(
     Linear LUT interpolation with clamp equals a sum of tent basis functions:
     with ``q = clip(u * n - 0.5, 0, n - 1)``,
     ``col = sum_l max(0, 1 - |q - l|) * lut[l]``. The unrolled form fuses into
-    pure elementwise VPU work — no (..., n) one-hot tensor ever materializes
-    (which would dominate HBM traffic at image scale).
+    pure elementwise work — no (..., n) one-hot tensor ever materializes
+    (which would dominate memory traffic at image scale).
     """
     n = lut.shape[0]
     q = jnp.clip((sample - offset) * scale * n - 0.5, 0.0, n - 1.0)
@@ -159,8 +169,7 @@ def sweep_slope_space(
     differentiation).
 
     Static grid constants are built with numpy on the host so they embed as
-    literals instead of device constants (device round-trips during lowering
-    are pathologically slow on remote-attached TPUs).
+    literals instead of device constants.
     """
     volume = jnp.asarray(volume)
     nz, ny, nx = volume.shape
@@ -186,9 +195,8 @@ def sweep_slope_space(
     # Pre-blend all sampling planes with static two-tap gather lerps (two
     # CUDA-model bilinear weights per plane; index clamp, az from the
     # unclipped floor). Outside the sweep, so the volume cotangent is a pair
-    # of static scatter-adds. Exact f32: the earlier (n_planes, nz) matmul
-    # form ran at the TPU's default bf16 matmul precision and rounded the
-    # volume to ~2e-3.
+    # of static scatter-adds. Exact f32: an (n_planes, nz) matmul form would
+    # run at the default (reduced) matmul precision and round the volume.
     sx, sy, sz = axis_scale  # filter-grid scales; see _axis_weights
     zf_all = (zs - zlo) / (zhi - zlo) * (nz * sz) - tex_offset
     iz0_all = np.floor(zf_all)
@@ -248,9 +256,8 @@ def sweep_preblended_planes_xla(
 ) -> jnp.ndarray:
     """Masked-scan sweep over an ALREADY pre-blended plane stack.
 
-    The XLA twin of the fused kernels' ``sweep_preblended_planes(_diff)``
-    (pallas/slice_kernel.py / slice_vjp.py): ``planes_all (P, NY, NX)`` is a
-    front-to-back plane stack, ``zs (P,)`` its HOST-side plane depths, and
+    ``planes_all (P, NY, NX)`` is a front-to-back plane stack, ``zs (P,)``
+    its HOST-side plane depths, and
     ``acc_init`` an optional (H, W, 4) premultiplied-RGBA seed that resumes
     the "over" recursion mid-flight — seeded pixels past the opacity
     threshold freeze instantly. ``plane_spacing`` must be the FULL stack's
@@ -259,9 +266,8 @@ def sweep_preblended_planes_xla(
 
     The custom VJP produces cotangents for the plane stack, TF LUT, render
     params AND the seed (``d seed_rgb = g_rgb``, ``d seed_a = g_a -
-    P_total / T_0`` with ``T_0 = 1 - seed_a`` — the same seed-cotangent
-    algebra as the fused kernel, slice_vjp.py _make_diff_sweep), so chained
-    chunk sweeps backpropagate exactly.
+    P_total / T_0`` with ``T_0 = 1 - seed_a``), so chained chunk sweeps
+    backpropagate exactly.
     """
     planes_all = jnp.asarray(planes_all)
     n_planes, ny, nx = planes_all.shape

@@ -10,10 +10,10 @@ Here the decode streams: the plane schedule is cut into chunks of planes,
 each chunk decodes ONLY the volume z-layers its planes touch, pre-blends
 them, and runs a SEEDED sweep that resumes the front-to-back "over"
 recursion from the previous chunk's accumulator — so the full decoded scalar
-volume never materializes in HBM. On one device the chained seed is the true
-prefix, so early termination is exact in a single pass (seeded pixels past
-the opacity threshold freeze instantly, and on the fused kernel their tiles
-skip — no two-pass scheme needed, unlike the distributed sort-last sweep).
+volume never materializes in device memory. On one device the chained seed
+is the true prefix, so early termination is exact in a single pass (seeded
+pixels past the opacity threshold freeze instantly — no two-pass scheme
+needed, unlike the distributed sort-last sweep).
 
 Differentiation: each chunk body (decode -> pre-blend -> seeded sweep) is
 wrapped in ``jax.checkpoint``, so the backward pass rematerializes the
@@ -24,22 +24,15 @@ the seed cotangent (``d seed_a = g_a - P_total / T_0``), so the chain rule
 walks the chunk chain exactly, and the decode's own VJP routes plane
 cotangents back to the distribution parameters per chunk.
 
-Backends: 'pallas' (the fused TPU kernel via sweep_preblended_planes_diff),
-'xla' (march/slice.py sweep_preblended_planes_xla), 'auto' (pallas on TPU
-when supported). Both are differentiable; results match the
-decode-everything-then-render path to float tolerance (tests).
+The chunk sweeps are march/slice.py ``sweep_preblended_planes_xla``;
+results match the decode-everything-then-render path to float tolerance
+(tests).
 
-Scope note: for HISTOGRAM volumes with the standard statistics, the
-in-kernel decode (pallas/slice_kernel.py pallas_hist_render and its
-diff/distributed twins) supersedes this path — mean, variance, AND
-entropy all decode in the kernel prologue at ~2x this path's
-throughput. This chunked chain remains the general route: arbitrary
-user decode functions (Gaussian parameterizations, learned decoders)
-and volumes whose decoded form exceeds HBM, where remat'd chunking is
-the only differentiable option. (The 1024^3 fwd+bwd datapoint moved OFF
-this path in round 5: pure-selection streaming removed the flip copies,
-so the direct fused VJP fits a 16 GB chip at 3x this path's throughput —
-bench.py fwdbwd_1024_route; this chain now starts beyond that.)
+Scope: this chunked chain is the route for arbitrary user decode functions
+(Gaussian parameterizations, learned decoders) and for volumes whose
+decoded form does not fit beside the distribution data, where remat'd
+chunking is the only differentiable option. Histogram volumes whose decoded
+form fits decode once (ops/histogram.py ``decode_with_rows``) and sweep.
 """
 
 from __future__ import annotations
@@ -75,9 +68,6 @@ def streaming_decode_render(
     march: MarchConfig = MarchConfig(),
     n_planes: int = 0,
     chunk_planes: int = 64,
-    backend: str = "auto",
-    plane_chunk: int = 4,
-    wrt: tuple = ("volume", "lut"),
     focal: float = 2.0,
     tex_offset: float = 0.5,
     remat: bool = True,
@@ -127,36 +117,11 @@ def streaming_decode_render(
 
     mx, my = _pixel_slope_grids(width, height, focal)
 
-    if backend == "auto":
-        use_pallas = False
-        if jax.default_backend() == "tpu":
-            from vrdd_tpu.pallas.slice_kernel import STRIP
-            from vrdd_tpu.pallas.slice_vjp import pallas_diff_supported
-
-            # the chunk sweeps call sweep_preblended_planes_diff directly
-            # (no pad/band wrapper): exact tiling required
-            use_pallas = (
-                width % 128 == 0
-                and height % STRIP == 0
-                and pallas_diff_supported(
-                    (nz, ny, nx), width, height, chunk_planes,
-                    n_lut=int(jnp.shape(tf_lut)[0]),
-                )
-            )
-        backend = "pallas" if use_pallas else "xla"
-
     origin = jnp.asarray(origin, dtype=jnp.float32)
     lut = jnp.asarray(tf_lut, dtype=jnp.float32)
     density = jnp.asarray(density, jnp.float32)
     toff = jnp.asarray(transfer_offset, jnp.float32)
     tscl = jnp.asarray(transfer_scale, jnp.float32)
-    if backend == "pallas":
-        from vrdd_tpu.pallas.slice_vjp import sweep_preblended_planes_diff
-
-        slopes_vec = jnp.asarray(
-            [mx[0], mx[1] - mx[0] if width > 1 else 0.0,
-             my[0], my[1] - my[0] if height > 1 else 0.0], jnp.float32
-        )
 
     acc = jnp.zeros((height, width, 4), dtype=jnp.float32)
     for c in range(n_chunks):
@@ -173,13 +138,6 @@ def streaming_decode_render(
                        li0=li0, li1=li1, azj=azj, zs_chunk=zs_chunk):
             scal = decode_layers(layers)  # (L, NY, NX)
             planes = scal[li0] * (1.0 - azj) + scal[li1] * azj
-            if backend == "pallas":
-                return sweep_preblended_planes_diff(
-                    planes, jnp.asarray(zs_chunk), origin, slopes_vec, lut,
-                    density, 1.0, toff, tscl, dz_sign=-1, width=width,
-                    height=height, march=march, plane_chunk=plane_chunk,
-                    plane_spacing=spacing, wrt=wrt, acc_init=acc,
-                )
             return sweep_preblended_planes_xla(
                 planes, zs_chunk, origin, mx, my, lut, density, 1.0,
                 toff, tscl, march, dz_sign=-1, plane_spacing=spacing,

@@ -315,19 +315,18 @@ long vrdd_compare_ppm(const uint8_t* rgb, const char* ref_path, int w, int h,
 
 
 
-// --------------------------------- bins-major histogram load (TPU layout)
+// --------------------------------- bins-major histogram load
 
 // Read a voxel-major / bins-minor histogram blob (the reference's on-disk
 // layout for block histograms: Z*Y*X records of n_bins floats,
 // volumeRender.cpp:583-597) and emit it TRANSPOSED to the framework's
-// bins-MAJOR device layout (nz, n_bins, ny, nx) — the layout the fused
-// in-kernel decode streams (pallas/slice_kernel.py pallas_hist_render:
-// bins stay a sublane axis so a chunk of z-layers tiles VMEM). Doing the
+// bins-MAJOR device layout (nz, n_bins, ny, nx) — the layout the decode
+// (ops/histogram.py decode_with_rows) takes, so a z-slab is contiguous. Doing the
 // transpose during the sequential file read costs one strided store per
 // element and avoids materializing a second full-size array in Python.
 // out_bf16 != 0: emit IEEE bfloat16 (round-to-nearest-even) into `out`
-// reinterpreted as uint16 — bf16 histogram storage is the kernel's
-// throughput default (half the HBM stream).
+// reinterpreted as uint16 — bf16 histogram storage halves the bytes the
+// decode reads.
 
 int vrdd_read_histograms_bins_major(const char* path, long nz, long ny,
                                     long nx, long n_bins, int out_bf16,

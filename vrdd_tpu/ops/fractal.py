@@ -6,7 +6,7 @@ add sparse errors (clamping at 0), renormalize — the semantics of
 fractalDecoding / flexibleFractalDecoding + the error-merge in
 d_basicDataProcessing (volumeRender_kernel.cu:195-251, 775-839).
 
-TPU-first design: instead of per-thread scalar loops, the decode is a pure
+Data-parallel design: instead of per-thread scalar loops, the decode is a pure
 vectorized op — flip via ``jnp.flip``, shift via one-hot *roll matrix* matmul
 (vectorizes the data-dependent shift across a whole codebook without gathers),
 error merge via masked scatter-add, renormalize as a reduction. Differentiable
@@ -29,8 +29,7 @@ import jax.numpy as jnp
 def _roll_rows(x: jnp.ndarray, shift: jnp.ndarray) -> jnp.ndarray:
     """Row-wise circular shift: ``out[b, (i + shift[b]) % n] = x[b, i]``.
 
-    Implemented as a gather with precomputed indices (cheap on VPU; the one-hot
-    matmul alternative is used in the Pallas path).
+    Implemented as a gather with precomputed indices.
     """
     n = x.shape[-1]
     j = jnp.arange(n, dtype=jnp.int32)

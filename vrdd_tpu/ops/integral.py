@@ -6,7 +6,7 @@ corner's prefix box into power-of-two (Fenwick) spans and *searching* a span
 codebook for each — a brute-force O(64*64*32) scan per span that costs
 194,764 ms (ver1.9.6.txt:9, the repo's own TODO:3-4).
 
-TPU-native replacement, two layers:
+Data-parallel replacement, two layers:
 
 1. ``integral_histogram``: a 3-D prefix-sum (cumsum over Z, Y, X) of the
    one-hot binned volume — the classic integral histogram. Any axis-aligned

@@ -42,9 +42,9 @@ def make_tf_fit_step(
 
     PERFORMANCE NOTE: this differentiates the general scan MARCHER
     (gather-bound; correct for any camera and query method, but orders of
-    magnitude slower per step on TPU than the fused object-order path). For
-    unrotated cameras over a scalar field use :func:`make_sweep_fit_step`
-    (the fused Pallas/XLA sweep VJP) — this factory is the fallback for
+    magnitude slower per step than the object-order path). For unrotated
+    cameras over a scalar field use :func:`make_sweep_fit_step` (the sweep's
+    analytic VJP) — this factory is the fallback for
     rotated views and the exotic query modes only.
     """
     optimizer = optax.adam(1e-2) if optimizer is None else optimizer
@@ -97,18 +97,15 @@ def make_sweep_fit_step(
     optimizer: optax.GradientTransformation = None,
     learn_volume: bool = False,
     n_planes: int = 0,
-    backend: str = "auto",
-    plane_chunk: int = 4,
+    plane_chunk: int = 8,
     density: float = 0.05,
 ) -> Tuple[Callable, Callable]:
     """``(init_fn, step_fn)`` for distributed fitting on the FAST sweep path.
 
     Unlike :func:`make_tf_fit_step` (scan-marcher bricks; kept as the
     fallback for rotated cameras and flexible-block queries), the forward
-    AND backward here run the fused Pallas sweep per device on TPU (the
-    analytic custom VJP of pallas/slice_vjp.py under shard_map) or the XLA
-    sweep on CPU. ``wrt`` is derived from ``learn_volume`` so the kernel
-    backward statically prunes unused cotangent paths; TF-LUT gradients are
+    AND backward here run the distributed object-order sweep
+    (parallel/sweep.py) per device under shard_map; TF-LUT gradients are
     summed across the mesh by the shard_map transpose (all-reduce overlap
     left to the XLA latency-hiding scheduler, SURVEY.md hard part (e)).
 
@@ -116,13 +113,11 @@ def make_sweep_fit_step(
     opt_state, loss)`` with ``params = {"tf_lut"}`` (+ ``"volume"`` when
     ``learn_volume``); ``volume`` placed via
     :func:`vrdd_tpu.parallel.sweep.shard_scalar_volume`, ``target`` via
-    :func:`shard_target_image`. ``plane_chunk=4`` is the measured-fastest
-    chunking for the fused backward (slice_vjp.py docstring).
+    :func:`shard_target_image`.
     """
     from vrdd_tpu.parallel.sweep import distributed_sweep_render
 
     optimizer = optax.adam(1e-2) if optimizer is None else optimizer
-    wrt = ("volume", "lut", "params") if learn_volume else ("lut", "params")
 
     def loss_fn(params, volume, origin, target):
         if learn_volume:
@@ -137,9 +132,7 @@ def make_sweep_fit_step(
             march=march,
             mesh=mesh,
             n_planes=n_planes,
-            backend=backend,
             plane_chunk=plane_chunk,
-            wrt=wrt,
         )
         return jnp.mean((img - target) ** 2)
 

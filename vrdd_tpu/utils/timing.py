@@ -1,6 +1,6 @@
 """Per-stage wall timing + structured metric logging.
 
-TPU-native replacement for the reference's cudaEvent per-kernel timers and
+Replacement for the reference's cudaEvent per-kernel timers and
 printf banners (volumeRender_kernel.cu:1739-1783, volumeRender.cpp:174-191).
 Stages block on device results (``block_until_ready``) so timings are honest.
 """
